@@ -2,7 +2,7 @@
 
 The reference's single-thread microbench sweeps transaction size and
 reports abort rates and per-transaction overhead (isolating HTM capacity
-aborts from concurrency).  The TPU analog: sweep the optimistic-build
+aborts from concurrency).  The analog here: sweep the optimistic-build
 chunk granularity and report the per-chunk failure fraction (the abort-rate
 statistic that drives HTM_ADAPT, HTMHashBuild.hpp:196-211) and build time —
 on locality data the failure fraction stays ~0 like low-tSize HTM, on

@@ -60,17 +60,13 @@ def parse_args(argv=None):
     p.add_argument("--skewHandling", action="store_true")
     p.add_argument("--meshShape", type=str, default="",
                    help="comma-separated mesh, e.g. '8' for 8-way data parallel")
-    p.add_argument("--backend", default="auto",
-                   choices=["auto", "xla", "pallas"],
-                   help="kernel backend (auto = banded Pallas engine on TPU "
-                        "when the plan qualifies)")
     # mc getopt_long compatibility surface (mc/src/main.c:492-608): the mc
     # driver's flags are accepted verbatim and mapped onto the unified config
     mc = p.add_argument_group("mc driver compatibility")
     mc.add_argument("-n", "--nthreads", type=int, default=None,
-                    help="mc worker count → static partition count (the TPU "
+                    help="mc worker count → static partition count (the "
                          "analog of per-thread ranges; XLA parallelizes "
-                         "within the chip)")
+                         "within the device)")
     mc.add_argument("-r", "--r-size", dest="rSizeMc", type=int, default=None)
     mc.add_argument("-s", "--s-size", dest="sSizeMc", type=int, default=None)
     mc.add_argument("-x", "--r-seed", dest="rSeed", type=int, default=None)
@@ -88,7 +84,7 @@ def parse_args(argv=None):
                     help="build side pk_lshuffle with this window "
                          "(generator.c:262-282)")
     mc.add_argument("--basic-numa", action="store_true",
-                    help="accepted for parity; placement on TPU follows the "
+                    help="accepted for parity; placement follows the "
                          "device-mapping file / mesh (SURVEY.md §2.4 P12)")
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="capture a jax.profiler trace of the run (the PCM "
@@ -154,7 +150,6 @@ def parse_args(argv=None):
         adaptive=a.adaptive, switch_sniff=a.switchSniff,
         skew_handling=a.skewHandling,
         mesh_shape=tuple(int(x) for x in a.meshShape.split(",") if x),
-        backend=a.backend,
     )
     return cfg, (a.profile, a.throughput, a.counters)
 

@@ -14,7 +14,7 @@ Each grid is a generator of JoinConfig objects mirroring one script:
 
 The reference pins rSize = 2^27 and sweeps shuffleRange over 2^0..2^27;
 grids here take a ``scale`` (log2 rSize) so the same sweep runs at dev scale
-on CPU and reference scale on TPU.  The compile-time binary variants
+on CPU and reference scale on the GPU.  The compile-time binary variants
 (noretry/retry/adaptive/adaptiveWithProbe/track, config.h:1-18) map to
 JoinConfig flags.
 """
@@ -126,13 +126,12 @@ def track(scale: int) -> Iterator[JoinConfig]:
 
 
 def skewprobe(scale: int) -> Iterator[JoinConfig]:
-    """TPU-scale skewed-probe grid (BASELINE.json config-5's single-chip
+    """Device-scale skewed-probe grid (BASELINE.json config-5's single-card
     analog; no reference script exists — the reference never probes with a
     skewed S at the top level, only mc's -z flag builds one,
     mc/src/main.c:393-412).  PK build side probed by a zipf S over a sweep
-    of skew parameters: every point exercises the banded engine's
-    sort-probe-side device sort (S arrives unsorted) and, at high skew, the
-    duplicate-heavy general count + mass-overflow replan."""
+    of skew parameters: S arrives unsorted and, at high skew,
+    duplicate-heavy."""
     n = 1 << scale
     for algo in (Algo.HTM, Algo.ATOMIC, Algo.NOCC):
         for z in (0.25, 0.5, 0.75, 1.0, 1.25):

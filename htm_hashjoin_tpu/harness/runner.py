@@ -16,6 +16,8 @@ import sys
 import time
 from typing import List, Optional
 
+import jax
+
 from ..config import JoinConfig
 from ..data.generators import build_relations
 from .grids import GRIDS, RUNNER_ORDER
@@ -24,7 +26,7 @@ from .grids import GRIDS, RUNNER_ORDER
 # Generated relations reused across CONSECUTIVE grid points sharing
 # generator inputs (a tSize sweep regenerates nothing; window-inner sweeps
 # still regenerate per point — cross-algo reuse would need a window-sweep-
-# sized cache, ~28 GB at 2^27).  Two entries ≈ 2 GB HBM on a single chip.
+# sized cache, ~28 GB at 2^27).  Two entries ≈ 2 GB of device memory.
 _GEN_CACHE: "dict[tuple, tuple]" = {}
 _GEN_CACHE_CAP = 2
 
@@ -36,10 +38,9 @@ def _relations_for(cfg: JoinConfig):
     if key not in _GEN_CACHE:
         if len(_GEN_CACHE) >= _GEN_CACHE_CAP:
             _GEN_CACHE.pop(next(iter(_GEN_CACHE)))
-        from ..utils.timing import fence_outputs
         r, s = build_relations(cfg)
-        # ONE bundled readback: generation is NOT part of the timed phases
-        fence_outputs((r.keys, r.payloads, s.keys, s.payloads))
+        # generation is NOT part of the timed phases
+        jax.block_until_ready((r.keys, r.payloads, s.keys, s.payloads))
         _GEN_CACHE[key] = (r, s)
     return _GEN_CACHE[key]
 
@@ -64,15 +65,9 @@ def run_config(cfg: JoinConfig) -> str:
 
 
 def run_grid(name: str, *, scale: int = 20, reps: int = 5,
-             out_dir: Optional[str] = None, echo: bool = True,
-             pipeline_depth: int = 1) -> List[str]:
+             out_dir: Optional[str] = None, echo: bool = True) -> List[str]:
     """Run grid ``name`` ``reps`` times; write <name>_log<i> files when
-    out_dir is given.  Returns the last repetition's lines.
-
-    pipeline_depth > 1 switches per-point timing to the sustained-throughput
-    shape (enqueue K, fence once — bench.py:74-84) on the banded-engine
-    paths; single-run times ride along as singleRunTimeInMicroseconds."""
-    import dataclasses
+    out_dir is given.  Returns the last repetition's lines."""
     if name not in GRIDS:
         raise ValueError(f"unknown grid {name!r}; have {sorted(GRIDS)}")
     lines: List[str] = []
@@ -80,8 +75,6 @@ def run_grid(name: str, *, scale: int = 20, reps: int = 5,
         lines = []
         t0 = time.time()
         for cfg in GRIDS[name](scale):
-            if pipeline_depth > 1:
-                cfg = dataclasses.replace(cfg, pipeline_depth=pipeline_depth)
             line = run_config(cfg)
             lines.append(line)
             if echo:
@@ -97,9 +90,7 @@ def run_grid(name: str, *, scale: int = 20, reps: int = 5,
 
 
 def run_all(*, scale: int = 20, reps: int = 5,
-            out_dir: str = "experiments/logs",
-            pipeline_depth: int = 1) -> None:
+            out_dir: str = "experiments/logs") -> None:
     """runner.sh: every grid, N repetitions, logs on disk."""
     for name in RUNNER_ORDER:
-        run_grid(name, scale=scale, reps=reps, out_dir=out_dir,
-                 pipeline_depth=pipeline_depth)
+        run_grid(name, scale=scale, reps=reps, out_dir=out_dir)

@@ -6,7 +6,7 @@ Reference: with HTM_SWITCH (config.h:16-17), a pre-pass inserts K=5 rounds of
 the driver switches from the HTM build to radix join — the paper's headline
 mechanism (README.md:6).
 
-On TPU the failure mode that makes direct bucketed scatter inexact is not
+On a device the failure mode that makes direct bucketed scatter inexact is not
 cache-line conflict aborts but (a) duplicate keys and (b) non-dense key
 universes (bucket wrap-around).  The sniff therefore samples strided chunks
 across the relation (the partition-spread sampling of the reference pre-pass)

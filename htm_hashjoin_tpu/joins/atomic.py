@@ -2,7 +2,7 @@
 
 Reference: AtomicHashBuild.hpp:14-157 — open-addressing table of
 std::atomic<uint64_t>, insert via compare_exchange_strong with budget
-`probeLength`, exhausted budget spills to a conflicts array.  TPU-native:
+`probeLength`, exhausted budget spills to a conflicts array.  Here:
 `probe_length` claim-table rounds (ops/insert.py claim_insert_round) — every
 round is one CAS step for *all* pending tuples at once; spills become a
 sorted, probe-able array so no matches are lost (the reference probe ignored
@@ -25,8 +25,7 @@ from ..ops.hashing import identity_hash
 from ..utils.metrics import JoinMetrics
 from ..utils.timing import PhaseTimer
 from .common import (SpillState, finish_metrics, keys_are_unique,
-                     pallas_unique_join, resolve_relations,
-                     route_unique_pallas, table_size_for)
+                     resolve_relations, table_size_for)
 
 
 @functools.partial(jax.jit, static_argnums=(1, 2, 3))
@@ -44,8 +43,6 @@ def _probe(table: jax.Array, skeys: jax.Array, probe_length: int):
 
 def atomic_join(r: Relation, s: Optional[Relation] = None,
                 cfg: JoinConfig = JoinConfig()) -> JoinMetrics:
-    if route_unique_pallas(cfg, s):
-        return pallas_unique_join("atomic", r, s, cfg)
     rkeys, skeys = resolve_relations(r, s, cfg)
     timer = PhaseTimer()
     table, pending, table_sum, in_sum = timer.timed(

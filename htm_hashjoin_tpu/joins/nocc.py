@@ -28,8 +28,8 @@ from ..ops import insert, probe
 from ..ops.hashing import identity_hash
 from ..utils.metrics import JoinMetrics
 from ..utils.timing import PhaseTimer
-from .common import (SpillState, finish_metrics, pallas_unique_join,
-                     resolve_relations, route_unique_pallas, table_size_for)
+from .common import (SpillState, finish_metrics, resolve_relations,
+                     table_size_for)
 
 
 @functools.partial(jax.jit, static_argnums=(1, 2))
@@ -47,8 +47,6 @@ def _probe(table: jax.Array, skeys: jax.Array, probe_length: int):
 
 def nocc_join(r: Relation, s: Optional[Relation] = None,
               cfg: JoinConfig = JoinConfig()) -> JoinMetrics:
-    if route_unique_pallas(cfg, s):
-        return pallas_unique_join("nocc", r, s, cfg)
     rkeys, skeys = resolve_relations(r, s, cfg)
     timer = PhaseTimer()
     table, pending, table_sum, in_sum = timer.timed(

@@ -6,7 +6,7 @@ per-bucket test-and-set latches around insert-with-overflow-chain
 (build_hashtable_mt :383-439), latch-free chain-walking probe (:270-310),
 SPMD pthreads with three barrier phases (:536-612).
 
-TPU-native: a 2-slot bucket_build (latches unnecessary — claim rounds are the
+Here: a 2-slot bucket_build (latches unnecessary — claim rounds are the
 deterministic arbiter, SURVEY.md P6), overflow chains replaced by a sorted
 spill array that the probe binary-searches.  The three pthread barriers are
 the three host-dispatched XLA phases.  Software prefetching (PREFETCH_NPJ,
@@ -29,7 +29,7 @@ from ..ops.hashing import identity_hash
 from ..utils.metrics import JoinMetrics
 from ..utils.timing import PhaseTimer
 from .common import (SpillState, finish_metrics, keys_are_unique,
-                     keys_unique_both, resolve_relations)
+                     resolve_relations)
 
 BUCKET_SIZE = 2  # npj_params.h:18-20
 
@@ -51,10 +51,10 @@ def npo_st_join(r: Relation, s: Optional[Relation] = None,
                 cfg: JoinConfig = JoinConfig()) -> JoinMetrics:
     """NPO_st — the reference's single-threaded NPO (mc/src/
     no_partitioning_join.c:336-373): identical table layout and probe, no
-    SPMD phases.  The TPU analog is the same build/probe issued as plain
-    single-program XLA (no banded-engine pipelining, no mesh), i.e. the
+    SPMD phases.  The analog here is the same build/probe issued as plain
+    single-program XLA (no mesh), i.e. the
     semantic baseline the multi-pipeline paths are checked against."""
-    st_cfg = dataclasses.replace(cfg, backend="xla", mesh_shape=())
+    st_cfg = dataclasses.replace(cfg, mesh_shape=())
     m = npo_join(r, s, st_cfg)
     m.algo = "npo_st"
     return m
@@ -62,31 +62,6 @@ def npo_st_join(r: Relation, s: Optional[Relation] = None,
 
 def npo_join(r: Relation, s: Optional[Relation] = None,
              cfg: JoinConfig = JoinConfig()) -> JoinMetrics:
-    from .common import pallas_metrics, pallas_plan, use_pallas_engine
-    if use_pallas_engine(cfg, s):
-        # the shared chained-bucket table re-expressed as the banded engine:
-        # bucket chains = sorted runs, the latch-free chain walk = banded
-        # merge-count (same matches/conservation contract)
-        import time
-
-        from .pallas_backend import banded_join_pipelined
-
-        plan = pallas_plan(cfg)
-        interpret = jax.default_backend() == "cpu"
-        t0 = time.perf_counter()
-        out = banded_join_pipelined(r.keys, s.keys,
-                                    locality_window=plan.window,
-                                    presort=plan.presort,
-                                    presorted=plan.presorted,
-                                    narrow=plan.narrow,
-                                    sort_s=not s.assume_sorted,
-                                    unique_both=keys_unique_both(cfg),
-                                    interpret=interpret)
-        elapsed_us = (time.perf_counter() - t0) * 1e6
-        m = pallas_metrics(cfg, "npo", out, elapsed_us, out.matches,
-                           plan=plan, sort_s=not s.assume_sorted)
-        m.totalOverflows = out.overflow_tiles
-        return m
     rkeys, skeys = resolve_relations(r, s, cfg)
     timer = PhaseTimer()
     num_buckets = next_pow2(max(2, cfg.r_size // BUCKET_SIZE))

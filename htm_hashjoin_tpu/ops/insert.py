@@ -180,13 +180,13 @@ class OptimisticBuildResult(NamedTuple):
 def htm_optimistic_build(keys: jax.Array, num_buckets: int, *,
                          retry: bool = True, unique_keys: bool = False
                          ) -> OptimisticBuildResult:
-    """The HTM-equivalent build (HTMHashBuild.hpp:157-278), TPU-first.
+    """The HTM-equivalent build (HTMHashBuild.hpp:157-278), data-parallel.
 
     Phase 1 (optimistic, the transaction analog): scatter every key directly
     at bucket*3 + key%3 where bucket = (key/3) & mask.  For the dense 1..N key
     universes of every reference distribution this mapping is *injective* when
     3*num_buckets > max(key) — the whole insert completes in one conflict-free
-    HBM-bandwidth scatter.  That is the TPU re-expression of "with locality,
+    device-memory-bandwidth scatter.  That is the data-parallel re-expression of "with locality,
     HTM transactions almost never abort" (README.md:6).
 
     Phase 2 (failure detection, the abort analog): gather back; a key whose

@@ -1,12 +1,12 @@
 """Radix partitioning: histogram → exclusive scan → stable reorder.
 
-The TPU re-expression of parallel_radix_partition
+The data-parallel re-expression of parallel_radix_partition
 (mc/src/parallel_radix_join.c:559-627: per-thread histogram, barrier,
 cross-thread prefix sum, scatter) and Wisconsin's RadixPartitioner
 (mc/wisconsin-src/partitioner.cpp:336-520).  The thread histograms + barrier
 + prefix sum collapse into a single segment-sum and cumsum; the scatter
-becomes a stable sort by digit, which XLA executes as a fused bitonic
-pipeline — no write-combining buffers or non-temporal stores needed
+becomes a stable sort by digit, which XLA executes as one device sort —
+no write-combining buffers or non-temporal stores needed
 (the SWWC path mc/src/parallel_radix_join.c:655-795 is a CPU cache artifact).
 """
 
@@ -57,7 +57,7 @@ def radix_partition(keys: jax.Array, bits: int, shift: int = 0, *,
     else:
         out_digits, out_keys = jax.lax.sort_key_val(digits, keys, is_stable=True)
     # the histogram falls out of the SORTED digits with one searchsorted —
-    # the scatter-add alternative serializes on TPU (~150 M elem/s)
+    # no scatter-add of every row into its digit's counter
     bounds = jnp.searchsorted(out_digits, jnp.arange(fanout + 1, dtype=out_digits.dtype),
                               side="left", method="scan")
     hist = jnp.diff(bounds).astype(jnp.int32)
@@ -87,8 +87,7 @@ def radix_partition_msb(keys: jax.Array, bits: int, *, sorter=jnp.sort):
     partition — so the histogram → prefix-sum → scatter pipeline PLUS the
     per-partition bucket-chaining build (parallel_radix_join.c:559-627,
     :231-283) collapse into one int32 key sort.  That keeps the hot loop in
-    the 32-bit sorting-network domain (the Pallas global-sort megakernel on
-    TPU) instead of a twice-the-bandwidth int64 composite sort.
+    the 32-bit sort instead of a twice-the-bandwidth int64 composite sort.
 
     Returns (PartitionResult, shift): shift is traced (derived from the data
     maximum), digits/hist describe the MSB partitions.
@@ -99,8 +98,7 @@ def radix_partition_msb(keys: jax.Array, bits: int, *, sorter=jnp.sort):
     shift = jnp.maximum(bit_length(jnp.max(out_keys[-1:])) - bits, 0)
     digits = ((out_keys >> shift) & (fanout - 1)).astype(jnp.int32)
     # sorted keys ⇒ the histogram is searchsorted diffs at digit boundaries
-    # (O(fanout·log n)) — an XLA scatter-add histogram serializes on TPU and
-    # would dominate the whole partition.  The last boundary fanout<<shift
+    # (O(fanout·log n)), not a scatter-add of every row.  The last boundary fanout<<shift
     # can overflow int32, so it is replaced by n.
     bounds = (jnp.arange(1, fanout, dtype=jnp.int32) << shift).astype(jnp.int32)
     cum = jnp.searchsorted(out_keys, bounds, side="left").astype(jnp.int32)

@@ -3,8 +3,8 @@
 The reference sort-merge (SortMerge.cpp:8-70) does a 64-way partitioned
 parallel timsort, a final single-thread timsort pass, then a partitioned
 two-pointer merge with branch-free match counting.  Both phases are serial
-loops; on TPU the sort is `jax.lax.sort` (XLA's fused bitonic sorter, fully
-parallel) and the merge-count becomes binary-search bounds — a vectorized,
+loops; here the sort is one XLA device sort (fully parallel) and the
+merge-count becomes binary-search bounds — a vectorized,
 multiset-correct equivalent of the two-pointer count (SortMerge.cpp:22-36).
 """
 
@@ -21,7 +21,7 @@ from .probe import probe_sorted
 def partitioned_sort(keys: jax.Array, num_partitions: int = 64) -> jax.Array:
     """Full ascending sort.  The reference's two-phase (partitioned timsort
     then global pass, SortMerge.cpp:11-18) exists to exploit multicore +
-    near-sortedness; XLA's single fused sort is the TPU-optimal form.  The
+    near-sortedness; XLA's single device sort needs neither.  The
     num_partitions argument is accepted for API parity and ignored."""
     del num_partitions
     return jnp.sort(keys)

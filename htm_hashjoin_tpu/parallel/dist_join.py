@@ -2,13 +2,13 @@
 
 The reference is single-process shared-memory; its "communication" is pthread
 barriers and cache-coherent shared tables (SURVEY.md §2.5).  This module is
-the distributed layer the TPU framework introduces as a first-class
+the distributed layer this framework introduces as a first-class
 component: relations are row-sharded over a 1-D mesh, hash-repartitioned with
 `lax.all_to_all` (the distributed analog of parallel_radix_partition's
 barrier + prefix-sum + scatter, mc/src/parallel_radix_join.c:559-627), joined
 locally per device with the sort-based engine, and match counts reduced with
 `psum` (the analog of the pthread_join result summation,
-mc/src/no_partitioning_join.c:595-599).  Collectives ride ICI within a slice.
+mc/src/no_partitioning_join.c:595-599).  XLA hands the collectives to NCCL.
 
 Skew handling (SURVEY.md P9; SKEW_HANDLING mc/src/parallel_radix_join.c:958-1055):
 zipf-hot keys would overload one device's receive bucket.  A sampled global
@@ -104,7 +104,7 @@ def _exchange_hier(keys, active, ndev, hosts, chips, cap, pad_value,
                    host_axis="host", chip_axis="chip", res_cap=0):
     """FUSED two-stage hierarchical repartition over a ("host", "chip")
     mesh — SURVEY.md §5's hierarchical partitioning: the chip-level pass
-    rides ICI before the host-level pass crosses DCN.  Destination device
+    stays inside a host before the host-level pass crosses hosts.  Destination device
     for key k is d = murmur(k) & (ndev-1), laid out d = h·chips + c under
     P(("host","chip")) row sharding.
 
@@ -176,7 +176,7 @@ def _is_member(keys, sorted_set):
 def _count_sorted(sorted_build, probe_keys, i32_keys=False):
     from ..ops.probe import probe_sorted  # one fused tagged sort + scans
     # i32_keys: planner-certified 0 <= key < 2^30 — the int32 composite
-    # sort runs several times faster than int64 on TPU.  The R_PAD/S_PAD
+    # sort moves half the bytes of the int64 one.  The R_PAD/S_PAD
     # sentinels stay safe: R_PAD*2 wraps to -2 (its own build-only run,
     # contributes nothing) and S_PAD=0 probes key 0, which no generated
     # key (1-based) matches.
@@ -204,7 +204,7 @@ def _is_dev0(axis):
 
 def _residual_matches(r_res, s_res, r_recv, s_recv, axis, i32_keys=False):
     """Cooperative repair round: every device helps join the tuples that
-    overflowed their destination bucket — the TPU analog of the reference's
+    overflowed their destination bucket — the SPMD analog of the reference's
     cooperative re-partitioning of oversized partitions
     (mc/src/parallel_radix_join.c:958-1055).  Residual tuples are replicated
     with all_gather; the three disjoint cross terms are
@@ -322,7 +322,8 @@ def build_dist_join_fn(mesh: Mesh, n_r: int, n_s: int, *,
                        i32_keys: bool = False):
     """Compile-ready distributed join: (sharded rk, sharded sk) → DistResult.
     A 1-D mesh uses the flat all_to_all; a 2-D ("host", "chip") mesh uses
-    the two-stage hierarchical exchange (ICI pass before the DCN pass).
+    the two-stage hierarchical exchange (intra-host pass before the
+    inter-host pass).
     With ``residual_repair`` (the default) bucket overflow is joined exactly
     by the cooperative repair round instead of being dropped."""
     ndev = mesh.devices.size
@@ -385,12 +386,12 @@ def distributed_join(r: Relation, s: Optional[Relation],
                  ndev, S_PAD)
     rk = jax.device_put(rk, NamedSharding(mesh, spec))
     sk = jax.device_put(sk, NamedSharding(mesh, spec))
-    from ..joins.common import _max_key_bound
+    from ..joins.common import max_key_bound
     fn = build_dist_join_fn(mesh, rk.shape[0], sk.shape[0],
                             capacity_factor=cfg.shuffle_capacity_factor,
                             skew_handling=cfg.skew_handling,
                             residual_repair=cfg.residual_repair,
-                            i32_keys=_max_key_bound(cfg) < (1 << 30))
+                            i32_keys=max_key_bound(cfg) < (1 << 30))
     res = timer.timed("build", fn, rk, sk)
     m = JoinMetrics(algo=f"dist_{cfg.algo.value}", rSize=cfg.r_size,
                     transactionSize=cfg.transaction_size,

@@ -1,10 +1,11 @@
 """Device mesh construction.
 
 The reference's parallel substrate is pinned pthreads + NUMA first-touch
-(mc/src/cpu_mapping.c:54-81, generator.c:353-405 — SURVEY.md P12).  The TPU
-equivalent is a jax.sharding.Mesh over ICI-connected chips; `cpu-mapping.txt`
-becomes the mesh axis layout.  Multi-host pods extend the same mesh over DCN
-(jax.distributed.initialize + jax.devices()), which the single-node reference
+(mc/src/cpu_mapping.c:54-81, generator.c:353-405 — SURVEY.md P12).  The
+equivalent here is a jax.sharding.Mesh over the devices (one host's GPUs,
+joined all to all); `cpu-mapping.txt` becomes the mesh axis layout.
+Several hosts extend the same mesh (jax.distributed.initialize +
+jax.devices()), which the single-node reference
 never had (SURVEY.md §2.5).
 """
 

@@ -5,15 +5,14 @@ The reference is single-node shared-memory (SURVEY.md §2.5 — no
 distributed layer to compare against); the scaling evidence base this
 module produces backs BASELINE.json's ">=80% scaling efficiency" north
 star.  Runs on the virtual CPU mesh (XLA_FLAGS
---xla_force_host_platform_device_count=N) and, degenerately, on one real
-TPU chip.
+--xla_force_host_platform_device_count=N) or on the GPUs of one host.
 
 Unlike the production distributed join (dist_join.py — ONE fused program,
 one host fence), each phase here is its own shard_map program with a
 fenced timing readback, so the log decomposes wall time into:
 
   exchange  — bucketize + all_to_all (flat) or the two-stage hierarchical
-              (ICI-then-DCN) exchange, both sides,
+              (intra-host then inter-host) exchange, both sides,
   join      — local sorted-merge count + psum,
   repair    — the cooperative residual round (only when a bucket
               overflowed; its cost appears only in runs that repair).
@@ -37,7 +36,7 @@ from jax import lax
 from jax.sharding import Mesh, PartitionSpec as P
 from jax import shard_map
 
-from ..utils.timing import PhaseTimer, fence_outputs
+from ..utils.timing import PhaseTimer
 from .dist_join import (R_PAD, S_PAD, _bucketize, _count_sorted,
                         _exchange_hier, _is_dev0, _residual_matches)
 from .mesh import make_mesh
@@ -133,7 +132,7 @@ def scaling_point(mesh_shape, n_r: int, n_s: int, *, data: str = "uniform",
         sk = _pad_to(zipf_keys(n_s, n_r, zipf_theta, seed + 1), ndev, S_PAD)
     else:
         sk = _pad_to(sorted_keys(n_s), ndev, S_PAD)
-    fence_outputs((rk, sk))
+    jax.block_until_ready((rk, sk))
     if skew_handling:
         from jax.sharding import NamedSharding, PartitionSpec as P
         from .dist_join import build_dist_join_fn

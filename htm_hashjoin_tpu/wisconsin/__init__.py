@@ -1,4 +1,4 @@
-"""Wisconsin "multijoin" subsystem — the TPU-native re-design of
+"""Wisconsin "multijoin" subsystem — the device-array re-design of
 /root/reference/mc/wisconsin-src (the configurable partition/build/probe
 join framework, SURVEY.md §2.3).
 

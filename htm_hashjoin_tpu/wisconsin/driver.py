@@ -6,7 +6,7 @@ run compute(): barrier, split build side, split probe side, barrier,
 joiner->build, barrier, joiner->probe, barrier — with rdtsc checkpoints per
 phase (main.cpp:75-94) and cumulative cycles printed (main.cpp:411-413).
 
-TPU flow: same phases, one SPMD program each; the barriers are implicit in
+Here: same phases, one SPMD program each; the barriers are implicit in
 dispatch ordering.  Per-phase wall-nanosecond spans replace rdtsc; the
 'threads' conf knob becomes the logical shard count used by partitioner
 layouts (and the mesh size when run distributed).
@@ -20,6 +20,7 @@ import os
 import time
 from typing import Any, Dict, Optional, Union
 
+import jax
 import numpy as np
 
 from .conf import parse_conf
@@ -109,14 +110,12 @@ def run_multijoin(conf: Union[str, Dict[str, Any]], *,
                 timings[name] = time.perf_counter_ns() - self_.t0
         return _Span()
 
-    from ..utils.timing import fence_outputs
-
     with phase("generate"):
         tbuild = _load_side(conf["build"], base,
                             conf["partitioner"]["build"].get("pagesize", 1 << 20))
         tprobe = _load_side(conf["probe"], base,
                             conf["partitioner"]["probe"].get("pagesize", 1 << 20))
-        fence_outputs(tbuild.columns + tprobe.columns)
+        jax.block_until_ready(tbuild.columns + tprobe.columns)
 
     # factories (main.cpp:250-255)
     pbuild = partitioner_factory(conf["partitioner"]["build"],
@@ -133,28 +132,29 @@ def run_multijoin(conf: Union[str, Dict[str, Any]], *,
     joiner.init(tbuild.schema, sel1, ja1, tprobe.schema, sel2, ja2)
 
     # compute() phases (main.cpp:112-145).  Columns stay on device across
-    # phases; each phase ends with one scalar-bundle readback so the spans
+    # phases; each phase ends by waiting for its outputs so the spans
     # measure real device time (the rdtsc-checkpoint analog — dispatch is
-    # async and block_until_ready is not a reliable fence here).
+    # async).
     with phase("split_build"):
         parts_build = pbuild.split(tbuild)
-        fence_outputs(parts_build.table.columns)
+        jax.block_until_ready(parts_build.table.columns)
         if parts_build.table is not tbuild:
             tbuild.columns = []      # free the pre-split original: at the
-            # 256M-row reference scale the duplicate costs 2 GB of HBM
+            # 256M-row reference scale the duplicate costs 2 GB of device
+            # memory
     with phase("split_probe"):
         parts_probe = pprobe.split(tprobe)
-        fence_outputs(parts_probe.table.columns)
+        jax.block_until_ready(parts_probe.table.columns)
         if parts_probe.table is not tprobe:
             tprobe.columns = []
     with phase("build"):
         joiner.build(parts_build)
-        fence_outputs([getattr(joiner, a, None) for a in
+        jax.block_until_ready([getattr(joiner, a, None) for a in
                        ("_build_keys_sorted", "_build_perm", "_flat_comp",
                         "_build_payload")])
     with phase("probe"):
         output = joiner.probe(parts_probe)
-        fence_outputs(output.columns)
+        jax.block_until_ready(output.columns)
 
     if write_output and "output" in conf:
         output.save(os.path.join(base, conf["output"]))

@@ -1,9 +1,9 @@
-"""Typed column schemas — the TPU re-design of mc/wisconsin-src/schema.h.
+"""Typed column schemas — the device-array re-design of mc/wisconsin-src/schema.h.
 
 The reference's Schema packs typed columns into byte-offset tuple layouts
 (schema.h:44+: int/long/double/string/pointer, ``getTupleSize``,
 ``calcOffset``, ``asLong``).  That AoS byte layout exists for cache-line
-locality; a TPU wants structure-of-arrays, so here a Schema is just the
+locality; device memory wants structure-of-arrays, so here a Schema is just the
 ordered list of column types, and the Table (table.py) stores one device
 array per column.  ``tuple_size`` is kept (bytes per logical row) because
 the reference reports and sizes buffers with it.

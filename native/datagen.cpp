@@ -2,8 +2,8 @@
 //
 // Counterpart of the reference's C generator stack (mc/src/generator.c:58-545,
 // mc/src/genzipf.c:28-158, include/DataGen.hpp:14-122) re-implemented as a
-// multithreaded C++17 shared library.  The TPU framework generates relations
-// on the host (then feeds device buffers); for 2^27+ tuple relations the
+// multithreaded C++17 shared library.  It generates relations on the host
+// (then feeds device buffers); for 2^27+ tuple relations the
 // Python/numpy path is the bottleneck, so generation is native, parallel and
 // seeded (xoshiro256**, one independently-jumped stream per thread).
 //

@@ -1,66 +1,49 @@
-"""HTM_ADAPT real-dial tests (joins/htm.py _adaptive_pallas_plan): the
-measured sample displacement drives WHICH sorter program runs
-(HTMHashBuild.hpp:204-211 re-expressed as an execution choice)."""
+"""HTM_ADAPT transaction-size controller (HTMHashBuild.hpp:204-211): the
+per-chunk failure fractions of the optimistic scatter drive the replayed
+tSize trace reported as adaptiveTransactionSizeFinal."""
 
-import dataclasses
+import pytest
 
 from htm_hashjoin_tpu.config import Algo, Distribution, JoinConfig
 from htm_hashjoin_tpu.data.generators import build_relations
-from htm_hashjoin_tpu.joins.common import (adaptive_window_estimate,
-                                           pallas_plan)
-from htm_hashjoin_tpu.joins.htm import htm_join
+from htm_hashjoin_tpu.joins.htm import htm_join, simulate_adaptive_tsize
 
 N = 1 << 14
 
 
-def _cfg(**kw):
-    base = dict(algo=Algo.HTM, r_size=N,
-                data_distr=Distribution.LOCAL_SHUFFLE, shuffle_range=8,
-                enable_probe=True, backend="pallas", adaptive=True)
-    base.update(kw)
-    return JoinConfig(**base)
-
-
-def test_adaptive_picks_cheap_sorter_when_config_lies():
-    """Data has window 8; the config declares 2^14.  The fixed plan would
-    run the expensive wide path; the dial measures ~8 and picks the
-    optimistic bounded-displacement sorter."""
-    cfg = _cfg()
+def _run(**kw):
+    cfg = JoinConfig(algo=Algo.HTM, r_size=N, adaptive=True, **kw)
     r, s = build_relations(cfg)
-    lied = dataclasses.replace(cfg, shuffle_range=N)
-    m = htm_join(r, s, lied)
+    return htm_join(r, s, cfg)
+
+
+def test_adaptive_grows_tsize_on_locality():
+    """Dense unique keys never abort: every chunk doubles tSize."""
+    m = _run(data_distr=Distribution.LOCAL_SHUFFLE, shuffle_range=8)
     assert m.totalMatches == N and m.inputSum == m.outputSum
-    ap = m.extra["adaptivePlan"]
-    assert ap["window"] is not None and ap["window"] <= 512, ap
-    # the fixed plan under the lying config is NOT the optimistic sorter
-    fixed = pallas_plan(lied)
-    assert fixed.window is None
-    assert m.extra["adaptiveTransactionSizeFinal"] == ap["window"]
+    assert m.extra["adaptiveTransactionSizeFinal"] > 16
 
 
-def test_adaptive_escalates_on_global_shuffle():
-    """In-chunk displacement saturates on globally shuffled data — the
-    dial must escalate to the sort-first plan, not trust the sample."""
-    cfg = _cfg(data_distr=Distribution.SHUFFLE)
+def test_adaptive_shrinks_tsize_on_duplicates():
+    """Duplicate-heavy keys abort in every chunk: tSize halves."""
+    m = _run(data_distr=Distribution.UNIFORM, distinct_keys=N // 16)
+    assert m.inputSum == m.outputSum
+    assert m.extra["adaptiveTransactionSizeFinal"] < 16
+
+
+@pytest.mark.parametrize("fracs,t0,want", [
+    ([0.0] * 12, 16, [32, 64, 128, 256, 512, 1024, 2048, 4096, 4096, 4096,
+                      4096, 4096]),                      # capped at 4096
+    ([0.5] * 6, 16, [8, 4, 2, 1, 1, 1]),                 # floored at 1
+    ([0.01, 0.003, 0.021, 0.004, 0.020], 16, [16, 32, 16, 16, 16]),
+])
+def test_controller_thresholds(fracs, t0, want):
+    """< 0.004 doubles (cap 4096), > 0.02 halves (floor 1), else holds."""
+    assert simulate_adaptive_tsize(fracs, t0) == want
+
+
+def test_adaptive_off_reports_no_trace():
+    cfg = JoinConfig(algo=Algo.HTM, r_size=N,
+                     data_distr=Distribution.SHUFFLE)
     r, s = build_relations(cfg)
-    m = htm_join(r, s, cfg)
-    assert m.totalMatches == N and m.inputSum == m.outputSum
-    ap = m.extra["adaptivePlan"]
-    assert ap["windowEstimate"] is None
-    assert ap["presort"] is True
-
-
-def test_adaptive_estimate_statistics():
-    cfg = _cfg()
-    r, _ = build_relations(cfg)
-    est = adaptive_window_estimate(r.keys, cfg)
-    assert 0 < est["maxDisplacement"] <= 8
-    assert est["sampleDuplicates"] == 0       # permutation data
-    assert est["sniffTimeUs"] > 0
-
-
-def test_window_override_zero_stays_guarded():
-    """A sample measuring zero displacement must NOT claim certified
-    sortedness — the 1-pass optimistic sorter (violation-guarded) runs."""
-    plan = pallas_plan(JoinConfig(r_size=N), window_override=0)
-    assert plan.presorted is False and plan.window == 1
+    assert "adaptiveTransactionSizeFinal" not in htm_join(r, s, cfg).extra

@@ -104,7 +104,7 @@ def test_uneven_size_padding():
 
 # ---------------------------------------------------------------------------
 # Hierarchical 2-stage exchange over a ("host", "chip") mesh (SURVEY.md §5:
-# DCN-level pass after the ICI-level pass)
+# host-level pass after the chip-level pass)
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("shape", [(2, 4), (4, 2)])

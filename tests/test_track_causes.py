@@ -2,19 +2,15 @@
 
 The reference histograms aborts by _XABORT_* status bit
 (HTMHashBuild.hpp:134-142) and prints them as "Conflict Reason: ..."
-(experiments/old/track_log:2).  The TPU analog classifies per-tile failures
-into displacement-violation (optimistic sorter), duplicate-alias (equal keys
-sharing a slot), and band-overflow (probe band past the kernel's certified
-reach) and emits them alongside chunkFailureFractions.
+(experiments/old/track_log:2).  The scatter build classifies its failures
+into displacement (none: no bounded-displacement assumption), duplicate-alias
+(equal keys sharing an optimistic slot) and capacity (claim-round residue
+spilled) and emits them alongside chunkFailureFractions.
 """
-
-import numpy as np
-import jax.numpy as jnp
 
 from htm_hashjoin_tpu.config import Algo, Distribution, JoinConfig
 from htm_hashjoin_tpu.data.generators import build_relations
 from htm_hashjoin_tpu.joins import htm_join
-from htm_hashjoin_tpu.joins.pallas_backend import banded_build_pipelined
 
 N = 1 << 13
 
@@ -22,54 +18,25 @@ CAUSES = ("failureCauseDisplacement", "failureCauseDuplicateAlias",
           "failureCauseBandOverflow")
 
 
-def test_banded_track_causes_unique_keys():
-    """Unique local_shuffle keys: no duplicate aliases, no band (build-only);
-    the only possible cause is a displacement violation — and it must agree
-    with failedTransactions."""
+def test_track_causes_unique_keys():
+    """Unique local_shuffle keys: no aborts of any cause, and every cause
+    field is present."""
     cfg = JoinConfig(algo=Algo.HTM, r_size=N,
                      data_distr=Distribution.LOCAL_SHUFFLE, shuffle_range=4,
-                     track=True, enable_probe=False, backend="pallas")
+                     track=True, enable_probe=False)
     r, s = build_relations(cfg)
     m = htm_join(r, s, cfg)
-    assert m.extra["backend"] == "pallas_banded"
     for f in CAUSES:
-        assert f in m.extra, f
-    assert m.extra["failureCauseDuplicateAlias"] == 0
-    assert m.extra["failureCauseBandOverflow"] == 0
-    assert m.extra["failureCauseDisplacement"] == m.failedTransactions
-    assert "duplicateAliasFractions" in m.extra
-
-
-def test_banded_dup_alias_counts_exact():
-    """Direct engine call with duplicate keys: per-tile duplicate-alias
-    counts equal n - distinct (single tile, every duplicate is adjacent
-    once sorted)."""
-    rng = np.random.RandomState(7)
-    keys = jnp.asarray(rng.randint(1, N // 4, size=N, dtype=np.int32))
-    distinct = len(np.unique(np.asarray(keys)))
-    out, viols, dups = banded_build_pipelined(
-        keys, return_tile_violations=True, interpret=True)
-    assert int(np.sum(dups)) == N - distinct
-    assert int(np.sum(viols)) == 0            # exact bitonic plan
-    assert out.input_sum == out.output_sum
-
-
-def test_banded_dup_alias_sorted_presorted_plan():
-    """The presorted tier computes aliases straight off the certified-sorted
-    input."""
-    keys = jnp.asarray(np.sort(np.concatenate(
-        [np.arange(1, N + 1, dtype=np.int32), np.full(17, 5, np.int32)])))
-    out, viols, dups = banded_build_pipelined(
-        keys, presorted=True, return_tile_violations=True, interpret=True)
-    assert int(np.sum(dups)) == 17
-    assert int(np.sum(viols)) == 0
+        assert m.extra[f] == 0, f
+    assert m.failedTransactions == 0 and m.conflictCount == 0
+    assert m.inputSum == m.outputSum
 
 
 def test_xla_track_causes_duplicates():
     """XLA scatter build on a duplicate-heavy distribution: slot losses are
     duplicate aliases, spilled residue is the capacity analog."""
     cfg = JoinConfig(algo=Algo.HTM, r_size=N, data_distr=Distribution.UNIFORM,
-                     distinct_keys=N // 16, track=True, backend="xla")
+                     distinct_keys=N // 16, track=True)
     r, s = build_relations(cfg)
     m = htm_join(r, s, cfg)
     assert m.extra["failureCauseDisplacement"] == 0
@@ -80,7 +47,7 @@ def test_xla_track_causes_duplicates():
 
 def test_track_json_line_carries_causes():
     cfg = JoinConfig(algo=Algo.HTM, r_size=N, data_distr=Distribution.SORTED,
-                     track=True, enable_probe=False, backend="pallas")
+                     track=True, enable_probe=False)
     r, s = build_relations(cfg)
     import json
     d = json.loads(htm_join(r, s, cfg).to_json_line())

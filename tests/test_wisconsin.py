@@ -813,77 +813,6 @@ def test_perm_route_reported_on_canonical_schedule():
     assert len(j.stats.probe_schedule["worker_micros"]) == 4
 
 
-def test_rotation_kv_split_matches_packed2():
-    """The Pallas kv rotation split (TPU fast path, exercised here in
-    interpret mode) groups rows identically to the stable packed2 sort:
-    same partition sizes/offsets, same per-partition key/payload
-    multisets, payload aligned with its key."""
-    import jax.numpy as jnp
-
-    from htm_hashjoin_tpu.wisconsin.partitioner import (_reorder_rot2_kv,
-                                                        _rot_pack)
-    rng = np.random.default_rng(9)
-    n = 5000
-    keys = rng.integers(1, 1 << 14, n).astype(np.int32)
-    payload = rng.integers(0, 1 << 30, n).astype(np.int32)
-    h = ModuloHash(1, 1 << 14, 16)          # 16 buckets, skip 0
-    B = (int(keys.max()) - 1 + 1).bit_length()
-    restbits = max(B - 4, 0)
-    key_s, pay_s, so = _reorder_rot2_kv(jnp.asarray(keys),
-                                        jnp.asarray(payload), h, 16,
-                                        1, 0, 4, restbits, interpret=True)
-    key_s = np.asarray(key_s); pay_s = np.asarray(pay_s)
-    sizes, offs = so[0], so[1]
-    assert sizes.sum() == n
-    buckets = np.asarray(h.hash(jnp.asarray(keys)))
-    # payload alignment: every output row is a real input row
-    pair_in = set(zip(keys.tolist(), payload.tolist()))
-    assert all((k, v) in pair_in for k, v in zip(key_s.tolist(),
-                                                 pay_s.tolist()))
-    for p in range(16):
-        seg = slice(int(offs[p]), int(offs[p] + sizes[p]))
-        assert (np.asarray(h.hash(jnp.asarray(key_s[seg]))) == p).all()
-        exp = np.sort(keys[buckets == p])
-        assert np.array_equal(np.sort(key_s[seg]), exp)
-        assert len(exp) == int(sizes[p])
-
-
-def test_rotation_kv_split_with_shard_bias():
-    """The Independent partitioner's (bucket, shard) secondary rank embeds
-    into the rotation sort key (bias bits between bucket and rest):
-    partitions group correctly AND shards stay contiguous within each
-    partition."""
-    import jax.numpy as jnp
-
-    from htm_hashjoin_tpu.wisconsin.partitioner import _reorder_rot2_kv
-    rng = np.random.default_rng(13)
-    n = 6000
-    keys = rng.integers(1, 1 << 14, n).astype(np.int32)
-    payload = np.arange(n, dtype=np.int32)
-    h = ModuloHash(1, 1 << 14, 16)
-    nthreads = 8
-    page = 64
-    shard = ((np.arange(n) // page) % nthreads).astype(np.int32)
-    B = (int(keys.max())).bit_length()
-    restbits = max(B - 4, 0)
-    key_s, pay_s, so = _reorder_rot2_kv(
-        jnp.asarray(keys), jnp.asarray(payload), h, 16, 1, 0, 4, restbits,
-        bias=jnp.asarray(shard), bias_bits=3, interpret=True)
-    key_s = np.asarray(key_s); pay_s = np.asarray(pay_s)
-    sizes, offs = so[0], so[1]
-    assert sizes.sum() == n
-    buckets = np.asarray(h.hash(jnp.asarray(keys)))
-    for p in range(16):
-        seg = slice(int(offs[p]), int(offs[p] + sizes[p]))
-        assert (np.asarray(h.hash(jnp.asarray(key_s[seg]))) == p).all()
-        # shards contiguous within the partition (Independent layout)
-        seg_shards = shard[pay_s[seg]]
-        changes = np.sum(seg_shards[1:] != seg_shards[:-1])
-        assert changes <= nthreads - 1
-        assert np.array_equal(np.sort(key_s[seg]),
-                              np.sort(keys[buckets == p]))
-
-
 def test_steal_cuts_int32_matches_int64():
     """The certified int32 steal-cost formulation (used when
     n * (max_occupancy + 1) < 2^31) must produce identical cut points and
